@@ -6,7 +6,7 @@ T in {16,32,64,128} x n in {4,6,8,16} x m in {1,2,3,4}
 variants over T in {31,63} (reference: lqr_benchmark.cpp:547-555,749-751);
 every case reports the regularized-KKT residual norm as a correctness
 counter (reference: lqr_benchmark.cpp:533-534).  `--batch B` adds
-vmapped-throughput variants, the TPU-relevant number.
+vmapped-throughput variants, the number that matters on an accelerator.
 
 Usage: python benchmarks/lqr_benchmark.py [--quick] [--batch 1024] [--json out.json]
 """
@@ -19,15 +19,14 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from common import (apply_platform_env, base_parser, make_chain_lqr,
-                    report, timer, tree_topologies)
+from common import (base_parser, make_chain_lqr, report, timer,
+                    tree_topologies)
 
 
 def main():
     args = base_parser(__doc__).parse_args()
 
     import jax
-    apply_platform_env()
     import jax.numpy as jnp
     from sip_optimal_control_tpu import Topology, compile_topology
     from sip_optimal_control_tpu.ops.lqr import (lqr_factor, lqr_residual_norm,
@@ -98,7 +97,7 @@ def main():
     # reference's BM_LQRVariable{Factor,Solve,FactorSolve} grid
     # (reference: lqr_benchmark.cpp:209-271 builds state_dims[node] =
     # max(1, base_n + node%3 - 1), control_dims[edge] = max(1, base_m +
-    # edge%3 - 1) with base_m=2; grid at :547-555).  The TPU design pads
+    # edge%3 - 1) with base_m=2; grid at :547-555).  This design pads
     # every stage to max dims and masks (SURVEY 2.2), so these rows
     # measure the padding-waste cost relative to the uniform rows above
     # (VERDICT r3 missing #3).

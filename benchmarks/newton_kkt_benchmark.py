@@ -20,7 +20,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from common import apply_platform_env, base_parser, report, timer
+from common import base_parser, report, timer
 
 
 def make_model(dims, topo, rng):
@@ -90,7 +90,6 @@ def main():
     args = base_parser(__doc__).parse_args()
 
     import jax
-    apply_platform_env()
     import jax.numpy as jnp
     from sip_optimal_control_tpu import (Dimensions, Topology,
                                          compile_topology)

@@ -19,7 +19,7 @@ from sip_optimal_control_tpu.models import cartpole_swingup
 def main():
     spec, dims, topo, lower, upper, x0 = cartpole_swingup(horizon=50)
     f64 = jnp.result_type(float) == jnp.float64
-    # fp64 reaches tight tolerances; fp32 (TPU default) needs barrier and
+    # fp64 reaches tight tolerances; fp32 (JAX's default) needs barrier and
     # regularization floors above single precision (as bench.py uses)
     settings = (soc.Settings(max_iterations=100, tol=1e-6) if f64 else
                 soc.Settings(max_iterations=100, tol=1e-3, mu_min=1e-5,

@@ -19,15 +19,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import os
-
 import numpy as np
 import jax
-
-# Honor JAX_PLATFORMS=cpu even where a site-installed TPU plugin takes
-# priority (e.g. remote-compile environments).
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
 import sip_optimal_control_tpu as soc

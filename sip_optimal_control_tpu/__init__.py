@@ -1,9 +1,9 @@
-"""sip_optimal_control_tpu — a TPU-native trajectory-optimization engine.
+"""sip_optimal_control_tpu — a batched trajectory-optimization engine.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 C++ reference `joaospinto/sip_optimal_control`: a stagewise interior-point
 NLP solver whose Newton-KKT systems are reduced to dual-regularized LQR over
-rooted trees and solved by Riccati recursions — plus TPU-first additions the
+rooted trees and solved by Riccati recursions — plus additions the
 reference doesn't have: scenario batching via vmap, multi-host scenario
 sharding via jax.sharding, level-synchronous tree recursion, and
 associative-scan parallel-in-time Riccati.

@@ -326,69 +326,8 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
     default_init = Primal(x=x_init, u=jnp.zeros((E, m)),
                           theta=jnp.zeros((p,)))
 
-    # Fused-line-search eligibility (ops/pallas_ls.py scope): chain,
-    # uniform dims, no theta, no constraint functions, and box bounds
-    # that are constant across stages (so the kernel can bake them as
-    # trace-time scalars).  Traced (non-concrete) bounds -> ineligible.
-    fused_ls = None
-    fused_iter = None
-    if (not topology.is_chain and uniform and p == 0
-            and spec.node_eq is None and spec.node_ineq is None
-            and spec.edge_eq is None and spec.edge_ineq is None
-            and cn == 0 and ce == 0 and gn == 0 and ge == 0):
-        # TREE topologies: the fused line-search probe generalizes via
-        # per-stage baked-index jaxprs (ops/pallas_ls.py::TreeLSSpec);
-        # same stage-constant-bounds requirement as the chain path
-        try:
-            lo_u, up_u = np.asarray(lower.u), np.asarray(upper.u)
-            lo_x, up_x = np.asarray(lower.x), np.asarray(upper.x)
-        except Exception:
-            lo_u = None
-        if lo_u is not None and all(
-                np.all(a == a[:1]) for a in (lo_u, up_u, lo_x, up_x)):
-            from .ops.pallas_ls import build_fused_tree_spec
-            tspec = build_fused_tree_spec(spec.dynamics, node_cost,
-                                          edge_cost, topology, n, m)
-            if tspec is not None:
-                fused_ls = (tspec,
-                            (lo_u[0], up_u[0], lo_x[0], up_x[0]),
-                            initial_state)
-    if (topology.is_chain and uniform and p == 0
-            and spec.node_eq is None and spec.node_ineq is None
-            and spec.edge_eq is None and spec.edge_ineq is None
-            # declared constraint DIMS must be zero too: nonzero dims with
-            # default zero-fns still create slack rows whose barrier/
-            # infeasibility terms the fused probe does not carry
-            and cn == 0 and ce == 0 and gn == 0 and ge == 0):
-        try:
-            lo_u, up_u = np.asarray(lower.u), np.asarray(upper.u)
-            lo_x, up_x = np.asarray(lower.x), np.asarray(upper.x)
-        except Exception:
-            lo_u = None
-        if lo_u is not None and all(
-                np.all(a == a[:1]) for a in (lo_u, up_u, lo_x, up_x)):
-            from .ops.pallas_ls import build_fused_spec
-            fspec = build_fused_spec(spec.dynamics, node_cost, edge_cost,
-                                     E, n, m)
-            if fspec is not None:
-                fused_ls = (fspec,
-                            (lo_u[0], up_u[0], lo_x[0], up_x[0]),
-                            initial_state)
-            if fspec is not None:
-                # whole-iteration fusion (same class; additionally needs
-                # the derivative jaxprs to be tile-interpretable)
-                from .ops.fused_iter import build_fused_iter_spec
-                ispec = build_fused_iter_spec(
-                    spec.dynamics, node_cost, edge_cost, E, n, m,
-                    hessian_mode)
-                if ispec is not None:
-                    fused_iter = (ispec,
-                                  (lo_u[0], up_u[0], lo_x[0], up_x[0]),
-                                  initial_state)
-
     return OCProblem(dims=dims, sched=sched, masks=masks,
                      eval_model=eval_model, eval_fcg=eval_fcg,
                      lower=lower, upper=upper, scale_dual=scale_dual,
                      scale_equality=scale_equality, scale_bound=scale_bound,
-                     default_init=default_init, fused_ls=fused_ls,
-                     fused_iter=fused_iter)
+                     default_init=default_init)

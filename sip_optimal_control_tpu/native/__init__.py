@@ -1,7 +1,7 @@
 """ctypes bindings for the native (C++) host-runtime components.
 
-The reference is a C++ library end to end; in the TPU framework the device
-compute path is JAX/XLA, and the host runtime pieces that remain genuinely
+The reference is a C++ library end to end; here the device compute path
+is JAX/XLA, and the host runtime pieces that remain genuinely
 host-side — topology compilation (the graph-builder step, reference:
 lqr.cpp:563-631) — are implemented natively here and consumed via ctypes.
 The shared library is built on demand with g++ and cached next to the
@@ -39,13 +39,18 @@ _STATUS_MESSAGES = {
 
 
 def _build() -> bool:
+    # build to a private name and rename: several processes (test workers)
+    # may build at once, and none may load a half-written library
+    tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
             ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-             "-o", str(_LIB), str(_SRC)],
+             "-o", str(tmp), str(_SRC)],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
     except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
         return False
 
 

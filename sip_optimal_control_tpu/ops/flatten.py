@@ -12,7 +12,7 @@ populate_workspace_metadata):
   inequality z = [node_g_0, ..., node_g_E, edge_g_0, ...]
              (types.cpp:55-63)
 
-The TPU framework never computes on these layouts (stagewise SoA arrays,
+This framework never computes on these layouts (stagewise SoA arrays,
 padded to max dims, are the compute format); this module exists for
 (a) parity tests against dense oracles in the reference's coordinates,
 (b) users migrating flat warm starts / bounds from the C++ stack.

@@ -1,5 +1,5 @@
 """Newton-KKT condensation, multiplier recovery, theta-Schur, and KKT
-operators — the TPU-native equivalent of the reference's CallbackProvider
+operators — the batched equivalent of the reference's CallbackProvider
 (reference: sip_optimal_control/helpers.cpp).
 
 The full regularized Newton-KKT operator over (x, y, z) with regularizations
@@ -23,7 +23,7 @@ Schur-eliminates theta against the stagewise KKT matrix
 
 Everything operates on *stagewise pytrees* of stacked SoA arrays — never on
 the flat vectors the C++ uses; flat interop lives in `flatten.py`.  The
-rank-k condensation accumulations are einsums (MXU-friendly); multiplier
+rank-k condensation accumulations are einsums; multiplier
 recovery is a matmul epilogue (reference: helpers.cpp:828-893).
 """
 

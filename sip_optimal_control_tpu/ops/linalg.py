@@ -1,13 +1,12 @@
 """Small dense linear-algebra primitives for the Riccati recursion.
 
-TPU-native equivalents of the reference's Eigen LLT + triangular solves
+Batched equivalents of the reference's Eigen LLT + triangular solves
 (reference: sip_optimal_control/lqr.cpp:473-549).  Stage matrices are tiny
 (n, m <= ~32) with *static* shapes, and throughput comes from batching
 thousands of scenarios — so instead of generic LAPACK-style kernels (slow to
-compile on XLA:CPU, and lane-starved on TPU for 4x4 blocks) we fully unroll
-the factorizations at trace time.  Every unrolled op is an elementwise op
-over the batch, which XLA fuses into lane-parallel VPU code: the classic
-"many small problems on SIMD" layout.
+compile, and one tiny problem per call) we fully unroll the factorizations
+at trace time.  Every unrolled op is an elementwise op over the batch,
+which XLA fuses: the classic "many small problems on SIMD" layout.
 
 Failure is reported as data (bool), never as an exception — a batched solver
 cannot abort on one bad scenario.  Non-PD inputs yield NaNs in the factor,
@@ -108,7 +107,7 @@ def _ge_solve_unrolled(a: jax.Array, b: jax.Array) -> jax.Array:
     elimination with implicit partial pivoting via `where` row-selects.
 
     a: [..., n, n]; b: [..., n, k].  Fully unrolled at trace time: every op
-    is elementwise over the batch (lane-parallel on TPU), with none of the
+    is elementwise over the batch, with none of the
     sequential pivoted-LU machinery jnp.linalg.solve lowers to.
     """
     n = a.shape[-1]
@@ -140,7 +139,8 @@ def _ge_solve_unrolled(a: jax.Array, b: jax.Array) -> jax.Array:
 
 def ge_solve(a: jax.Array, b: jax.Array) -> jax.Array:
     """Solve a x = b for general square a; b: [..., n] or [..., n, k].
-    Unrolled for small n (TPU lane-parallel), LAPACK-style fallback above."""
+    Unrolled for small n (elementwise over the batch), LAPACK-style
+    fallback above."""
     vec = b.ndim == a.ndim - 1
     if vec:
         b = b[..., None]

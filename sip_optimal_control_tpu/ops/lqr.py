@@ -1,6 +1,6 @@
 """Dual-regularized tree-LQR factor/solve — the flagship compute path.
 
-TPU-native re-design of the reference's Riccati solver
+A batched re-design of the reference's Riccati solver
 (reference: sip_optimal_control/lqr.cpp:473-871).  The exact linear system
 (reference: tests/lqr_test.cpp:152-186):
 
@@ -44,9 +44,9 @@ from ..types import (Dimensions, FactorStatus, Topology, TopologySchedule,
                      compile_topology)
 from .linalg import cho_solve, cholesky_with_ok, ge_solve
 
-# Unrolling the chain scans trades program size for far fewer sequential
-# kernel dispatches on TPU (the per-step bodies are tiny).  Overridable for
-# tuning experiments via SOC_SCAN_UNROLL.
+# Unrolling the chain scans trades program size for fewer sequential loop
+# trips (the per-step bodies are tiny).  Overridable for tuning experiments
+# via SOC_SCAN_UNROLL.
 import os as _os
 _SCAN_UNROLL = int(_os.environ.get("SOC_SCAN_UNROLL", "2"))
 
@@ -310,7 +310,7 @@ def _assoc_prefix_scan(fn, xs):
     scan's consumers are fused — observed as wrong solve results and heap
     corruption (`free(): invalid next size`) depending on which outputs
     stay live.  This formulation uses only contiguous slicing and
-    concatenation, which lowers cleanly on CPU and TPU; same O(log T)
+    concatenation, which lowers cleanly everywhere; same O(log T)
     sequential depth (O(T log T) combine work — the combines are tiny
     matrix products, fully batched)."""
     n = jax.tree.leaves(xs)[0].shape[0]
@@ -655,10 +655,8 @@ def use_level_scan(sched: TopologySchedule) -> bool:
         return env == "1"
     L, W = sched.num_levels, sched.max_level_width
     N = len(sched.depth)
-    # L > 8: the r5 TPU measurement moved the threshold down — the
-    # scenario-fan robust-MPC tree (L=14, W=4) runs 1.23x faster under
-    # the scan (232.3k vs 189.2k solves/s/chip end to end); depth-<=4
-    # fans/binary trees keep the unrolled loop
+    # L > 8: the scenario-fan robust-MPC tree (L=14, W=4) takes the scan;
+    # depth-<=4 fans/binary trees keep the unrolled loop
     return L > 8 and L * W <= 4 * max(N, 1)
 
 
@@ -794,17 +792,22 @@ def lqr_factor(data: LQRData, sched: TopologySchedule,
     the status returned as int32 data in ``fact.status``.
 
     ``backend`` selects the chain implementation:
-      - "scan":  sequential `lax.scan` (default; best for large scenario
-        batches, which already saturate the vector lanes)
+      - "scan":  sequential `lax.scan` (default)
       - "assoc": associative-scan Riccati, O(log T) sequential depth — the
         long-horizon / low-latency path; additionally requires SPD R_e
-      - "pallas": fused Pallas kernel — one kernel for the whole backward
-        pass, carry in VMEM (batch sizes that are multiples of 1024)
+      - "pallas": Pallas (Triton) kernels that own the horizon loop, for
+        float32 scenario batches lowered for CUDA; the scan elsewhere
+        (see ops/pallas_riccati.py)
     Trees use the level-synchronous recursion: unrolled per level for
     shallow trees, a lax.scan over padded level schedules for deep narrow
     ones (`use_level_scan`), keeping program size O(1) in depth.
     All backends produce the same LQRFactorization products.
     """
+    with jax.named_scope("riccati"):
+        return _lqr_factor(data, sched, backend)
+
+
+def _lqr_factor(data, sched, backend):
     if sched.topology.is_chain:
         if backend == "assoc":
             return _factor_chain_assoc(data)
@@ -824,6 +827,11 @@ def lqr_solve(data: LQRData, fact: LQRFactorization,
 
     Any solve backend consumes any backend's factorization (same
     products)."""
+    with jax.named_scope("riccati"):
+        return _lqr_solve(data, fact, sched, backend)
+
+
+def _lqr_solve(data, fact, sched, backend):
     if sched.topology.is_chain:
         if backend == "assoc":
             return _solve_chain_assoc(data, fact)

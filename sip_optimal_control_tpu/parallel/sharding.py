@@ -1,12 +1,11 @@
 """Multi-device scenario sharding (BASELINE config 5).
 
-The reference is single-threaded C++ with no distribution (SURVEY 2.10);
-scale-out here is TPU-native: scenarios are data-parallel across a
-`jax.sharding.Mesh` axis via `shard_map`, each device vmapping its local
-shard of interior-point solves, with XLA collectives (`psum`) only for
-cross-scenario aggregates.  Multi-host runs use the same code over a pod
-slice (mesh built from all devices after `jax.distributed.initialize`);
-ICI/DCN routing is XLA's job.
+The reference is single-threaded C++ with no distribution (SURVEY 2.10).
+Here scenarios are data-parallel across a `jax.sharding.Mesh` axis via
+`shard_map`, each device vmapping its local shard of interior-point
+solves, with XLA collectives (`psum`) only for cross-scenario aggregates.
+Multi-host runs use the same code over all devices after
+`jax.distributed.initialize`; XLA routes the collectives.
 """
 
 from __future__ import annotations
@@ -16,11 +15,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:                                    # jax >= 0.7 public API
-    from jax import shard_map
-except ImportError:                     # older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..model import ModelSpec, build_problem
 from ..solver.settings import Settings
@@ -53,54 +49,43 @@ def solve_batch_sharded(spec: ModelSpec, dims: Dimensions,
                         settings: Optional[Settings] = None,
                         mesh: Optional[Mesh] = None,
                         axis_name: str = "scenario", lower=None, upper=None,
-                        stats_collectives: bool = True):
+                        init_vars=None, init_y=None):
     """Solve a batch of scenarios sharded across devices.
 
     Returns (controls [B, E, m], statuses [B], stats) where `stats` holds
     psum/pmean cross-scenario reductions — the collective pattern that
     robust-MPC couplings and global metrics ride on.
 
-    ``stats_collectives=False`` keeps the metric aggregation OUT of the
-    compiled program: the solve becomes pure data parallelism with no
-    collectives at all, and `stats` carries per-shard values (leading
-    axis = number of shards; reduce on the host).  This isolates what
-    joined DP scaling costs without the per-dispatch psum/pmax/pmean
-    (VERDICT r4 weak #2): on testbeds whose loopback-TCP collectives are
-    disproportionately slow the two modes differ sharply, on a real ICI
-    mesh they should not."""
+    ``init_vars`` / ``init_y``: optional batched warm start (leaves with a
+    leading [B] axis, e.g. the ``vars`` / ``y`` of a previous vmapped
+    ``solve``), sharded like ``x0s``.
+
+    With ``Settings.riccati_backend="pallas"`` the shard_map runs with
+    ``check_vma=False``: the Pallas Riccati kernels carry no varying-axes
+    types.  Every other backend keeps the check."""
     settings = settings or Settings()
     mesh = mesh or scenario_mesh(axis_name=axis_name)
 
-    def solve_one(x0):
+    def solve_one(x0, warm):
         problem = build_problem(spec, dims, topology, initial_state=x0,
                                 lower=lower, upper=upper)
-        return solve(problem, settings)
+        return solve(problem, settings, *warm)
 
-    def shard_fn(x0_local):
-        res = jax.vmap(solve_one)(x0_local)
+    def shard_fn(x0_local, warm_local):
+        res = jax.vmap(solve_one)(x0_local, warm_local)
         solved = jnp.sum((res.status == 0).astype(jnp.int32))
-        if stats_collectives:
-            stats = BatchSolveStats(
-                total_solved=jax.lax.psum(solved, axis_name),
-                max_kkt_error=jax.lax.pmax(jnp.max(res.kkt_error),
-                                           axis_name),
-                mean_iterations=jax.lax.pmean(
-                    jnp.mean(res.iterations.astype(jnp.float32)),
-                    axis_name))
-        else:
-            # per-shard stats, shape [1] so shard_map can stack them
-            stats = BatchSolveStats(
-                total_solved=solved[None],
-                max_kkt_error=jnp.max(res.kkt_error)[None],
-                mean_iterations=jnp.mean(
-                    res.iterations.astype(jnp.float32))[None])
+        stats = BatchSolveStats(
+            total_solved=jax.lax.psum(solved, axis_name),
+            max_kkt_error=jax.lax.pmax(jnp.max(res.kkt_error), axis_name),
+            mean_iterations=jax.lax.pmean(
+                jnp.mean(res.iterations.astype(jnp.float32)), axis_name))
         return res.vars.u, res.status, stats
 
-    stats_spec = P() if stats_collectives else P(axis_name)
     fn = shard_map(
-        shard_fn, mesh=mesh, in_specs=(P(axis_name),),
-        out_specs=(P(axis_name), P(axis_name), stats_spec))
-    return fn(x0s)
+        shard_fn, mesh=mesh, in_specs=(P(axis_name), P(axis_name)),
+        out_specs=(P(axis_name), P(axis_name), P()),
+        check_vma=settings.riccati_backend != "pallas")
+    return fn(x0s, (init_vars, init_y))
 
 
 def solve_joint_theta(spec: ModelSpec, dims: Dimensions,

@@ -45,11 +45,9 @@ class LineSearchSettings:
     use_filter_line_search: bool = False
     # Backtracking depth cap.  Under vmap the LS while_loop runs every
     # iteration to the BATCH's deepest backtracker at ~1 eval_fcg per trip,
-    # so depth is the dominant per-iteration cost at large batches
-    # (measured 8.8 ms/iter at 25 vs 4.5 at 4, TPU v5e batch 4096); depth
-    # 10 measured no quality loss vs 25 (cold cartpole solved_frac 0.94 vs
-    # 0.88, warm MPC equal) — an exhausted search rejects the step and
-    # inflates the carried regularization instead (Settings.reg_boost_*).
+    # so depth drives the per-iteration cost at large batches.  An
+    # exhausted search rejects the step and inflates the carried
+    # regularization instead (Settings.reg_boost_*).
     max_steps: int = 10
     backtrack: float = 0.5
     # Candidate alphas evaluated PER while-loop trip (vectorized over a
@@ -61,23 +59,10 @@ class LineSearchSettings:
     # chunk x the eval_fcg FLOPs/memory even when the first candidate is
     # accepted (the common case near convergence) — whether the widened
     # probe is cheaper than extra trips is workload-dependent, which is
-    # why the default stays 1 (classic backtracking).  Measured on the
-    # disturbance-MPC bench (TPU v5e, batch 4096, while-loop solver):
-    # chunk 10 -> +6% solves/s, chunk 5 -> +3%, chunk 3 -> -5%.  In
-    # fixed-trip RTI mode chunk = max_steps makes the whole LS a single
-    # vectorized trip (what bench.py --rti uses).
+    # why the default stays 1 (classic backtracking).  In fixed-trip RTI
+    # mode chunk = max_steps makes the whole LS a single vectorized trip
+    # (what bench.py --rti uses).
     chunk: int = 1
-    # Fused Pallas line-search probe (ops/pallas_ls.py): evaluates every
-    # chunk candidate from VMEM-resident trial state with the scenario
-    # batch packed onto the vector lanes, replacing the lane-padded
-    # [batch, chunk, T, m] XLA probe fusions (~45% of every IPM trip on
-    # the r4 device trace).  Engages only when the problem is eligible
-    # (chain topology, uniform dims, float32, theta_dim 0, box bounds
-    # only — build_problem records eligibility in OCProblem.fused_ls);
-    # everything else silently uses the standard probe.  Off by default
-    # (results match the standard probe to f32 roundoff, not bitwise:
-    # accumulation order differs).
-    fused_probe: bool = False
     eta: float = 1e-6          # Armijo slope fraction
     nu_min: float = 1.0        # merit penalty floor
     nu_rho: float = 0.1        # penalty margin: nu >= D/((1-rho) theta)
@@ -152,7 +137,7 @@ class Settings:
     # Absolute slack floor.  0 disables: the fraction-to-boundary rule keeps
     # s > 0, and any positive floor puts a floor under the g+s residual.
     slack_min: float = 0.0
-    # Sanitizer-style debug mode (the TPU-side analogue of the reference's
+    # Sanitizer-style debug mode (the device-side analogue of the reference's
     # asan/msan/ubsan build configs, reference: .bazelrc:38-59): after every
     # accepted iterate, check the primal variables, model evaluation and KKT
     # error for non-finite values and print a diagnostic line identifying
@@ -162,41 +147,26 @@ class Settings:
     # apply_K operator (the reference exposes its matvec oracles to the SIP
     # core for exactly this, helpers.cpp:953-977)
     iterative_refinement_steps: int = 0
-    # Matmul precision for every op traced inside solve().  TPU matmuls
-    # default to bf16 passes, which caps the reachable KKT error around
-    # 1e-1..1e-3 on badly-scaled problems: the robust_tree model measured
-    # solved 0/4096 at tol 1e-3 under the default vs 64/64 at "highest"
-    # (full f32), identical to CPU.  "highest" costs extra MXU passes but
-    # the correctness bar wins; set "default" to reclaim speed on problems
-    # known to tolerate bf16.
+    # Matmul precision for every op traced inside solve().  On the GPU the
+    # "default" precision lets float32 matmuls run in TF32, which keeps
+    # about three decimal digits and caps the reachable KKT error on
+    # badly-scaled problems.  "highest" keeps full float32; set "default"
+    # to reclaim speed on problems known to tolerate TF32.
     matmul_precision: str = "highest"
     # Chain-Riccati backend: "scan" (sequential lax.scan; default),
-    # "assoc" (associative-scan, O(log T) depth — ~5x faster at horizon
-    # 1024 with small batches on one chip; SURVEY 2.10(d)), or "pallas"
-    # (fused TPU kernel for large scenario batches).  Trees always use the
-    # level-synchronous recursion.
+    # "assoc" (associative-scan, O(log T) depth, for long horizons with
+    # small batches; SURVEY 2.10(d)), or "pallas" (Triton kernels that own
+    # the horizon loop, for float32 scenario batches lowered for CUDA; the
+    # scan elsewhere).  Trees always use the level-synchronous recursion.
     riccati_backend: str = "scan"
-    # Whole-iteration fusion (ops/fused_iter.py + solver/fused_chain.py):
-    # model evaluation, condensation and the Riccati factor/solve run as
-    # one Pallas kernel chain, and the solver carries only per-stage
-    # VECTORS between iterations (no [B, T, n, n] stage blocks in the RTI
-    # scan state).  Engages only for the fused-eligible class (chain,
-    # uniform dims, float32, no theta, box bounds only, scalar residual
-    # scalings, no iterative refinement, logging off) — every other
-    # problem/settings combination silently uses the standard path with
-    # identical results.  Per-scenario results match the standard path to
-    # f32 roundoff (kernel summation order differs).
-    fused_iteration: bool = False
     # Fixed-trip mode only: include the carried model evaluation in the
     # per-trip freeze-select (the default, exactly equal to the
     # while_loop's vmap semantics).  False excludes it: frozen lanes'
     # iterates/duals/statuses/kkt_error still freeze exactly, but the
     # carried ev keeps advancing, so SolveResult.f on a lane frozen
     # before the last trip reports a post-freeze iterate's objective.
-    # Exists because the select over StageModelData blocks is pure HBM
-    # traffic on the standard (non-fused) path; measured: cartpole
-    # REGRESSED ~27% with the r3 variant of this (kept the default), the
-    # tree workload is where it could pay (r5 re-measure).
+    # Exists because the select over StageModelData blocks is pure memory
+    # traffic; bench.py turns it off for the tree workload only.
     rti_freeze_ev: bool = True
     line_search: LineSearchSettings = LineSearchSettings()
     logging: LoggingSettings = LoggingSettings()

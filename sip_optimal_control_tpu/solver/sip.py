@@ -5,8 +5,7 @@ visible only through its callback interface (reference:
 sip_optimal_control.cpp:182-208): factor(w, r1, r2, r3), solve(b, sol), the
 K/H/C/G matvec oracles, model_callback with `new_x` caching, box bounds,
 residual scaling, and warm-startable (x, y) state.  This module implements
-that solver as a single jitted `lax.while_loop`, TPU-first: no host control
-flow, per-scenario statuses as data, batching via `jax.vmap` over the whole
+that solver as a single jitted `lax.while_loop`: no host control flow, per-scenario statuses as data, batching via `jax.vmap` over the whole
 solve.
 
 Method: slack-based primal-dual barrier with proximal (dual) regularization
@@ -158,15 +157,6 @@ class OCProblem:
     # default primal initialization when solve() gets no warm start
     # (e.g. the constant-trajectory init built from initial_state)
     default_init: Optional["Primal"] = None
-    # Fused-line-search eligibility payload, set by build_problem when the
-    # problem fits ops/pallas_ls.py's scope: a tuple
-    # (FusedLSSpec, bounds, initial_state).  None = always use the
-    # standard probe.
-    fused_ls: Optional[tuple] = None
-    # Whole-iteration-fusion payload (ops/fused_iter.py): a tuple
-    # (FusedIterSpec, bounds, initial_state) when the problem is eligible
-    # AND Settings.fused_iteration requests the fused solver path.
-    fused_iter: Optional[tuple] = None
 
 
 class SolveResult(NamedTuple):
@@ -367,15 +357,10 @@ def solve(problem: OCProblem, settings: Settings,
         raise ValueError(
             "fixed_iterations requires max_iterations >= 1 (a 0-length "
             "scan would diverge from the while_loop semantics)")
-    # Bake the matmul precision into every op traced below: TPU's default
-    # bf16 matmul passes cap the reachable KKT error on badly-scaled
+    # Bake the matmul precision into every op traced below: reduced-
+    # precision matmul passes cap the reachable KKT error on badly-scaled
     # problems (see Settings.matmul_precision).
     with jax.default_matmul_precision(settings.matmul_precision):
-        if settings.fused_iteration:
-            from .fused_chain import _eligible, solve_fused
-            if _eligible(problem, settings, coupled_axes):
-                return solve_fused(problem, settings, init_vars, init_y,
-                                   init_z, init_zl, init_zu)
         return _solve_impl(problem, settings, init_vars, init_y, init_z,
                            init_zl, init_zu, coupled_axes)
 
@@ -519,17 +504,6 @@ def _solve_impl(problem: OCProblem, settings: Settings,
         filt_th=jnp.full((settings.max_iterations,), jnp.inf, dtype),
         filt_ph=jnp.full((settings.max_iterations,), jnp.inf, dtype))
 
-    # Fused Pallas line-search probe (ops/pallas_ls.py): engaged when the
-    # problem is eligible (build_problem sets fused_ls) and we are in the
-    # f32 chain regime the kernel supports.
-    fused_probe_fn = None
-    fused_x0 = None
-    if (ls.fused_probe and problem.fused_ls is not None
-            and not coupled and dtype == jnp.float32):
-        from ..ops.pallas_ls import make_fused_probe
-        _fspec, _fbounds, fused_x0 = problem.fused_ls
-        fused_probe_fn = make_fused_probe(_fspec, _fbounds)
-
     # ----- residuals and errors -------------------------------------------
     def kkt_residuals(vars, s, y, z, zl, zu, ev: ModelEval):
         duals = _kkt_from_duals(template, y, z)
@@ -582,7 +556,8 @@ def _solve_impl(problem: OCProblem, settings: Settings,
 
     # evaluate the model at the initial iterate and classify it (SOLVED /
     # DIVERGED warm starts never enter the loop)
-    ev0 = problem.eval_model(vars0, y0, z0)
+    with jax.named_scope("model_eval"):
+        ev0 = problem.eval_model(vars0, y0, z0)
     if settings.logging.print_derivative_check_logs:
         # the reference's derivative-check channel
         # (reference: tests/variable_dimensions_test.cpp:432)
@@ -695,8 +670,9 @@ def _solve_impl(problem: OCProblem, settings: Settings,
             # coupled mode: a joint factorization fails when ANY lane's
             # does (all lanes must retry/reject together — they share one
             # Newton system)
-            f_ = kkt_factor(ev.stage, regs_, masks, sched, rbackend,
-                            axis_names=coupled)
+            with jax.named_scope("newton_step"):
+                f_ = kkt_factor(ev.stage, regs_, masks, sched, rbackend,
+                                axis_names=coupled)
             return f_._replace(status=gmax(f_.status)) if coupled else f_
 
         fact0 = gfactor(regs)
@@ -730,8 +706,9 @@ def _solve_impl(problem: OCProblem, settings: Settings,
             regs_f, fact = regs, fact0
         factor_failed = fact.status != 0
 
-        sol = kkt_solve(fact, ev.stage, b, sched, rbackend,
-                        axis_names=coupled)
+        with jax.named_scope("newton_step"):
+            sol = kkt_solve(fact, ev.stage, b, sched, rbackend,
+                            axis_names=coupled)
         for _ in range(settings.iterative_refinement_steps):
             # coupled note: apply_K's theta row returns this lane's
             # contribution (regs_f.r1_th is lane-0 masked), so resid.theta
@@ -845,8 +822,9 @@ def _solve_impl(problem: OCProblem, settings: Settings,
             for _ in range(chunk - 1):
                 cands.append(cands[-1] * bt)
             alphas = jnp.stack(cands)
-            oks = acceptable(alphas) & ((k + jnp.arange(chunk))
-                                        < ls.max_steps)
+            with jax.named_scope("line_search"):
+                oks = acceptable(alphas) & ((k + jnp.arange(chunk))
+                                            < ls.max_steps)
             any_ok = jnp.any(oks)
             sel = alphas[jnp.argmax(oks)]  # first True = largest alpha
             return jnp.where(any_ok, sel, alphas[-1] * bt), any_ok
@@ -871,28 +849,9 @@ def _solve_impl(problem: OCProblem, settings: Settings,
                 armijo = phi_t <= phi_bar0 + ls.eta * alpha * d_phi
                 return not_dom & (progress | armijo)
 
-            if fused_probe_fn is not None:
-                def filter_probe(alphas):
-                    fv, thv, lbv = fused_probe_fn(
-                        vars.x, dv.x, vars.u, dv.u, fused_x0, alphas)
-                    phi_t = fv - mu * lbv
-                    not_dom = jnp.all(
-                        (thv[:, None]
-                         <= (1.0 - ls.gamma_theta) * st.filt_th[None, :])
-                        | (phi_t[:, None]
-                           <= st.filt_ph[None, :]
-                           - ls.gamma_phi * st.filt_th[None, :]), axis=-1)
-                    progress = (
-                        (thv <= (1.0 - ls.gamma_theta) * theta0)
-                        | (phi_t <= phi_bar0 - ls.gamma_phi * theta0))
-                    armijo = phi_t <= phi_bar0 + ls.eta * alphas * d_phi
-                    return not_dom & (progress | armijo)
-            else:
-                filter_probe = jax.vmap(filter_trial)
-
             def fls_body(carry):
                 alpha, k, _ = carry
-                alpha_n, ok = _chunked(alpha, k, filter_probe)
+                alpha_n, ok = _chunked(alpha, k, jax.vmap(filter_trial))
                 return (alpha_n, k + chunk, ok)
 
             ls_init = (alpha_p + 0.0 * phi0, jnp.int32(0), phi0 != phi0)
@@ -920,16 +879,9 @@ def _solve_impl(problem: OCProblem, settings: Settings,
                 st.filt_ph.at[st.it].set(phi_bar0 - ls.gamma_phi * theta0),
                 st.filt_ph)
         else:
-            if fused_probe_fn is not None:
-                def armijo_ok(alphas):
-                    fv, thv, lbv = fused_probe_fn(
-                        vars.x, dv.x, vars.u, dv.u, fused_x0, alphas)
-                    phis = fv - mu * lbv + nu * thv
-                    return phis <= phi0 + ls.eta * alphas * slope
-            else:
-                def armijo_ok(alphas):
-                    phis = jax.vmap(lambda a: trial(a)[3])(alphas)
-                    return phis <= phi0 + ls.eta * alphas * slope
+            def armijo_ok(alphas):
+                phis = jax.vmap(lambda a: trial(a)[3])(alphas)
+                return phis <= phi0 + ls.eta * alphas * slope
 
             def ls_body(carry):
                 alpha, k, _ = carry
@@ -1014,7 +966,8 @@ def _solve_impl(problem: OCProblem, settings: Settings,
         # evaluate the model at the ACCEPTED iterate and classify it; the
         # loop exits without a wasted factor/solve trip and without a
         # post-loop re-evaluation
-        ev_n = problem.eval_model(vars_n, y_n, z_n)
+        with jax.named_scope("model_eval"):
+            ev_n = problem.eval_model(vars_n, y_n, z_n)
         # constant/empty leaves of a fresh ModelEval are not device-varying,
         # but the carried st.ev is; re-mark them (same vzero trick as state0)
         # so the while_loop carry types match under shard_map.
@@ -1074,12 +1027,9 @@ def _solve_impl(problem: OCProblem, settings: Settings,
         # so results per scenario are identical whenever the scenario
         # terminates within the budget; see Settings.fixed_iterations.
         #
-        # NOTE (measured negative result, r3): excluding the large carried
-        # ModelEval from this select — freezing only the iterate and a
-        # separate objective scalar — REGRESSED throughput ~27% uniformly
-        # across K (88.9k -> 65.1k at K=9, TPU v5e): the select is fused
-        # into the producers nearly for free, and special-casing ev
-        # disrupted the scan's buffer reuse.  Keep the whole-state select.
+        # The whole-state select is the default: it fuses into the
+        # producers, and special-casing ev can disrupt the scan's buffer
+        # reuse (Settings.rti_freeze_ev makes it a choice).
         def scan_body(st, _):
             new = body(st)
             keep = cond(st)

@@ -1,6 +1,6 @@
 """Core problem-description types: tree topology, dimensions, validation.
 
-TPU-native re-design of the reference front-end's L1 layer
+A batched re-design of the reference front-end's L1 layer
 (reference: sip_optimal_control/lqr.hpp:5-64, sip_optimal_control/types.hpp,
 sip_optimal_control/types.cpp:68-134).  Unlike the C++ reference — which keeps
 pointer tables and byte-exact workspace accounting — everything here is a

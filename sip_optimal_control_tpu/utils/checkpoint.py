@@ -6,7 +6,7 @@ across solve() calls (reference: tests/variable_dimensions_test.cpp:437-446,
 SURVEY section 5).  Here that state is an explicit pytree (Primal, YVec), so
 persisting it is a plain array dump: save the primal/dual iterates of a
 (possibly batched) solve to one ``.npz`` file and resume a receding-horizon
-MPC loop in a fresh process — the TPU-native "checkpoint/resume" for this
+MPC loop in a fresh process — the "checkpoint/resume" for this
 domain.
 """
 

@@ -1,19 +1,25 @@
 """Profiling helpers (the reference measures performance only through its
-google_benchmark binaries; on TPU the native tool is jax.profiler —
+google_benchmark binaries; on an accelerator the native tool is
+jax.profiler —
 SURVEY section 5)."""
 
 from __future__ import annotations
 
 import contextlib
+import tempfile
 import time
+from typing import Optional
 
 import jax
 
 
 @contextlib.contextmanager
-def trace_solve(log_dir: str = "/tmp/sip_oc_trace"):
+def trace_solve(log_dir: Optional[str] = None):
     """Capture a jax.profiler trace around a solve; view with XProf or
-    tensorboard-plugin-profile."""
+    tensorboard-plugin-profile.  Yields the trace directory (default: a
+    new directory under $TMPDIR)."""
+    if log_dir is None:
+        log_dir = tempfile.mkdtemp(prefix="sip_oc_trace_")
     with jax.profiler.trace(log_dir):
         yield log_dir
 

@@ -21,6 +21,9 @@ import jax.numpy as jnp
 from sip_optimal_control_tpu import (Dimensions, LQRData, Topology,
                                      compile_topology, lqr_factor,
                                      lqr_solve)
+from sip_optimal_control_tpu.ops import pallas_riccati
+from sip_optimal_control_tpu.ops.pallas_riccati import (factor_chain_triton,
+                                                        solve_chain_triton)
 
 _FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "golden", "lqr_golden.bin")
@@ -96,9 +99,11 @@ def test_golden_parity_vs_reference():
 
 
 def test_golden_parity_assoc_and_pallas_backends():
-    """The alternative chain backends against the same C++ fixtures
-    (assoc at f64; the Pallas kernel is f32-only and covered by its own
-    parity tests)."""
+    """The alternative chain backends against the same C++ fixtures: assoc
+    at f64, and the float32 Triton kernels in interpret mode at a float32
+    tolerance relative to the solution's scale."""
+    kernel = jax.jit(lambda d: solve_chain_triton(
+        d, factor_chain_triton(d, interpret=True), interpret=True))
     for (T, n, m, kind, topo, data, x, u, y, V, K) in _load_cases():
         if kind != 0:
             continue
@@ -109,3 +114,12 @@ def test_golden_parity_assoc_and_pallas_backends():
                                 ("y", sol.y, y)):
             err = np.max(np.abs(np.asarray(got) - want))
             assert err < 1e-9, (T, n, m, name, err)
+        if n > pallas_riccati._MAX_N:
+            continue        # beyond the kernels' shape rule
+        sol32 = kernel(jax.tree.map(lambda a: a[None].astype(jnp.float32),
+                                    data))
+        for name, got, want in (("x", sol32.x[0], x), ("u", sol32.u[0], u),
+                                ("y", sol32.y[0], y)):
+            err = np.max(np.abs(np.asarray(got) - want))
+            assert err < 1e-4 * max(1.0, np.max(np.abs(want))), (
+                T, n, m, name, err)

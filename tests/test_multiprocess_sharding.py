@@ -1,9 +1,9 @@
-"""Multi-PROCESS sharding test: the 2-host pod-slice analog on CPU.
+"""Multi-PROCESS sharding test: the 2-host analog on CPU.
 
 test_sharding.py proves the 8-virtual-device single-process path; this test
 goes one step further and runs `solve_batch_sharded` as a true SPMD program
 across TWO OS processes (4 virtual CPU devices each) joined by
-`jax.distributed.initialize` — the same initialization a multi-host TPU pod
+`jax.distributed.initialize` — the same initialization a multi-host run
 uses (SURVEY §2.10(e)), with the coordinator/DCN role played by localhost.
 Each process owns only its addressable shards of the global batch; the
 cross-scenario stats ride collectives spanning the process boundary.

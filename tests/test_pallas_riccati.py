@@ -1,11 +1,12 @@
-"""Pallas fused-Riccati backend tests (interpret mode on CPU).
+"""Chain-Riccati Pallas (Triton) kernel tests, interpret mode on CPU.
 
-The kernel must reproduce the scan backend's factorization products and
-solutions on f32 data under vmap (the solver's scenario axis), fall back
-cleanly when unsupported (f64 / unbatched), and propagate failure statuses
-per scenario."""
+The kernels must reproduce the scan backend's factorization products and
+solutions on batched f32 data, and propagate failure statuses per
+scenario.  `backend="pallas"` itself runs the scan off CUDA (unbatched,
+f64 and CPU-lowered calls), which the last test pins."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -15,6 +16,12 @@ from sip_optimal_control_tpu import FactorStatus, Topology, compile_topology
 from sip_optimal_control_tpu.ops.lqr import (LQRData, lqr_factor,
                                              lqr_factor_solve,
                                              lqr_residual_norm, lqr_solve)
+from sip_optimal_control_tpu.ops.pallas_riccati import (factor_chain_triton,
+                                                        solve_chain_triton)
+
+kernel_factor = jax.jit(functools.partial(factor_chain_triton,
+                                          interpret=True))
+kernel_solve = jax.jit(functools.partial(solve_chain_triton, interpret=True))
 
 
 def random_chain_f32(T, n, m, rng, batch):
@@ -44,13 +51,12 @@ def random_chain_f32(T, n, m, rng, batch):
 
 def test_pallas_factor_matches_scan_under_vmap():
     rng = np.random.default_rng(0)
-    T, n, m, B = 5, 3, 2, 4          # batch padded to 1024 inside
+    T, n, m, B = 5, 3, 2, 4          # batch padded to BLOCK_B inside
     sched = compile_topology(Topology.chain(T))
     data = random_chain_f32(T, n, m, rng, B)
 
     f_scan = jax.vmap(lambda d: lqr_factor(d, sched))(data)
-    f_pal = jax.jit(jax.vmap(
-        lambda d: lqr_factor(d, sched, backend="pallas")))(data)
+    f_pal = kernel_factor(data)
     assert np.all(np.asarray(f_pal.status) == FactorStatus.SUCCESS)
     for name in ("V", "W", "K", "G_chol", "F_chol"):
         np.testing.assert_allclose(
@@ -65,8 +71,8 @@ def test_pallas_factor_solve_end_to_end():
     sched = compile_topology(Topology.chain(T))
     data = random_chain_f32(T, n, m, rng, B)
 
-    sols, stats = jax.jit(jax.vmap(
-        lambda d: lqr_factor_solve(d, sched, backend="pallas")))(data)
+    fact = kernel_factor(data)
+    sols, stats = kernel_solve(data, fact), fact.status
     assert np.all(np.asarray(stats) == FactorStatus.SUCCESS)
     resid = jax.vmap(lambda d, s: lqr_residual_norm(d, s, sched))(data, sols)
     # f32 recursion; residual is small relative to O(1) data
@@ -85,7 +91,7 @@ def test_pallas_per_scenario_failure_status():
     # scenario 1 gets a non-PD R at one stage -> G failure for it only
     R_bad = data.R.at[1, 2].set(-jnp.eye(m, dtype=jnp.float32))
     data = dataclasses.replace(data, R=R_bad)
-    f = jax.vmap(lambda d: lqr_factor(d, sched, backend="pallas"))(data)
+    f = kernel_factor(data)
     stats = np.asarray(f.status)
     assert stats[0] == FactorStatus.SUCCESS
     assert stats[1] != FactorStatus.SUCCESS
@@ -109,23 +115,27 @@ def test_pallas_unbatched_and_f64_fall_back():
     resid = jax.vmap(lambda d, s: lqr_residual_norm(d, s, sched))(data64,
                                                                   sols)
     assert float(jnp.max(resid)) < 1e-10
+    # batched f32 on the CPU: the platform-dependent choice runs the scan
+    data32b = jax.tree.map(lambda a: jnp.stack([a, a]), data32)
+    run = jax.jit(jax.vmap(
+        lambda d: lqr_factor_solve(d, sched, backend="pallas")))
+    assert "triton" not in run.trace(data32b).lower(
+        lowering_platforms=("cpu",)).as_text()
+    sols, sts = run(data32b)
+    assert np.all(np.asarray(sts) == FactorStatus.SUCCESS)
 
 
 def test_pallas_gram_kernel_large_n_matches_scan():
-    """n >= _GRAM_N dispatches the Gram-form factor kernel (no explicit
-    F_inv/W/WA in-kernel; W recomputed in one batched pass outside) — it
-    must reproduce the scan backend's products and solutions at the
-    reference grid's top end (n=16, m=4)."""
-    from sip_optimal_control_tpu.ops.pallas_riccati import _GRAM_N
+    """The Gram-form factor kernel (no F_inv/W/WA in-kernel; W recomputed
+    in one batched pass outside) must reproduce the scan backend's
+    products and solutions at the reference grid's top end (n=16, m=4)."""
     rng = np.random.default_rng(5)
     T, n, m, B = 6, 16, 4, 3
-    assert n >= _GRAM_N
     sched = compile_topology(Topology.chain(T))
     data = random_chain_f32(T, n, m, rng, B)
 
     f_scan = jax.vmap(lambda d: lqr_factor(d, sched))(data)
-    f_pal = jax.jit(jax.vmap(
-        lambda d: lqr_factor(d, sched, backend="pallas")))(data)
+    f_pal = kernel_factor(data)
     assert np.all(np.asarray(f_pal.status) == FactorStatus.SUCCESS)
     for name in ("V", "W", "K", "G_chol", "F_chol"):
         np.testing.assert_allclose(
@@ -133,9 +143,7 @@ def test_pallas_gram_kernel_large_n_matches_scan():
             np.asarray(getattr(f_scan, name)), rtol=5e-4, atol=5e-4,
             err_msg=name)
 
-    sols, stats = jax.jit(jax.vmap(
-        lambda d: lqr_factor_solve(d, sched, backend="pallas")))(data)
-    assert np.all(np.asarray(stats) == FactorStatus.SUCCESS)
+    sols = kernel_solve(data, f_pal)
     sols_ref, _ = jax.vmap(lambda d: lqr_factor_solve(d, sched))(data)
     np.testing.assert_allclose(np.asarray(sols.x), np.asarray(sols_ref.x),
                                rtol=5e-3, atol=5e-3)

@@ -289,7 +289,7 @@ def test_nonconvex_saddle_needs_rejection_safeguard():
 
 
 def test_debug_check_finite_tripwire(capfd):
-    """Settings.debug_check_finite (the TPU analogue of the reference's
+    """Settings.debug_check_finite (the device-side analogue of the reference's
     sanitizer build configs, reference: .bazelrc:38-59) prints a diagnostic
     when non-finite values enter the iterate."""
     from sip_optimal_control_tpu.solver.sip import Primal
